@@ -1,13 +1,10 @@
 #!/usr/bin/env python
-"""Driver benchmark entry: prints ONE JSON line with the headline metric.
+"""Benchmark entry: prints the device, then ONE JSON line with the metrics.
 
-Headline = k-mers/s/chip at k=31 (BASELINE.json:2 counting north-star) on
-whatever accelerator jax.devices() provides (the real v5e chip under the
-driver), plus the correction and align stage rates as extra keys.
-vs_baseline is relative to the nominal single-chip targets in
-kmerax/bench/runners.py (no published reference numbers exist,
-BASELINE.json:13). All metrics use the round-4 chained fresh-batch
-methodology (see kmerax/bench/runners.py docstring).
+Headline = k-mers/s/chip at k=31 (BASELINE.json:2 counting north-star),
+plus the correction, align and end-to-end rates as extra keys, all with
+the chained fresh-batch methodology of kmerax/bench/runners.py. Runs only
+on an NVIDIA GPU: on any other device it exits non-zero with no result.
 """
 
 import json
@@ -17,6 +14,11 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 
 
 def main():
+    from kmerax.bench.device import card_name_power, require_gpu
+
+    device = require_gpu()
+    print(f"device: {device['platform']} {device['kind']} "
+          f"x{device['count']}; card: {card_name_power()}", flush=True)
     from kmerax.utils.compile_cache import enable
     enable()
     from kmerax.config import KmeraxConfig
@@ -30,19 +32,17 @@ def main():
     a = bench_align(cfg, n_reads=16384)
     e = bench_e2e(cfg, n_reads=65536)
     print(json.dumps({"metric": r["metric"], "value": r["value"],
-                      "unit": r["unit"], "vs_baseline": r["vs_baseline"],
+                      "unit": r["unit"],
                       "correct_metric": c["metric"],
                       "correct_value": c["value"],
                       "correct_unit": c["unit"],
-                      "correct_vs_baseline": c["vs_baseline"],
                       "align_metric": a["metric"],
                       "align_value": a["value"],
                       "align_unit": a["unit"],
-                      "align_vs_baseline": a["vs_baseline"],
                       "e2e_metric": e["metric"],
                       "e2e_value": e["value"],
                       "e2e_unit": e["unit"],
-                      "e2e_note": e["note"]}))
+                      "device": device}))
 
 
 if __name__ == "__main__":

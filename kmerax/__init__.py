@@ -1,4 +1,4 @@
-"""kmerax — TPU-native short-read k-mer counting, error correction & assembly.
+"""kmerax — short-read k-mer counting, error correction & assembly on the GPU.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 MGI-tech-bioinformatics/SuperPlus (see SURVEY.md; the reference tree is

@@ -44,8 +44,9 @@ def main():
     read_len = 150
     k = 31
     # mesh: data axis = hosts (DP over read shards), bucket axis = chips
-    # within a host (TP over spectrum segments) — DCN-shaped traffic rides
-    # "data", ICI-shaped rides "bucket", matching the production layout.
+    # within a host (TP over spectrum segments) — cross-host traffic rides
+    # "data", within-host traffic rides "bucket", matching the production
+    # layout.
     mesh = make_mesh(MeshSpec(nprocs, dph))
     cfg = KmeraxConfig(k=k, bloom_log2_width=20,
                        mesh_data=nprocs, mesh_bucket=dph)

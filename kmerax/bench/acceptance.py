@@ -36,7 +36,7 @@ class AcceptanceSpec:
     paired: bool = True
     error_rate: float = 0.01
     assemble: bool = False
-    mesh: tuple = (1, 1)      # (data, bucket) — >1 needs >=4 devices
+    mesh: tuple = (1, 1)      # (data, bucket); needs data*bucket devices
     note: str = ""
 
 
@@ -68,23 +68,33 @@ CONFIGS = {
         full_genome_len=3_100_000_000, coverage=30, read_len=150,
         k=31, k2=63, assemble=True, error_rate=0.005,
         note="Human WGS 30x PE150, k=31+k=63 two-pass correct+assemble "
-             "(BASELINE.json:11; v5e-16 emulated at scale-down)"),
+             "(BASELINE.json:11; scaled down)"),
 }
 
 
+def _sim():
+    """The read simulator (tests/sim.py), imported as `sim` the way the
+    tests import it."""
+    import importlib
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    for p in (root, os.path.join(root, "tests")):
+        if p not in sys.path:
+            sys.path.insert(0, p)
+    return importlib.import_module("sim")
+
+
 def _write_fastq_gz(path: str, reads) -> None:
-    from tests.sim import make_fastq
     with gzip.open(path, "wb", compresslevel=1) as f:
-        f.write(make_fastq(reads))
+        f.write(_sim().make_fastq(reads))
 
 
 def _sim_inputs(spec: AcceptanceSpec, scale: float, workdir: str, seed: int):
-    import sys
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    if root not in sys.path:
-        sys.path.insert(0, root)
-    from tests.sim import random_genome, simulate_pairs, simulate_reads
+    sim = _sim()
+    random_genome, simulate_pairs, simulate_reads = (
+        sim.random_genome, sim.simulate_pairs, sim.simulate_reads)
 
     g_len = max(4 * spec.read_len, int(spec.genome_len * scale))
     rng = np.random.default_rng(seed)
@@ -198,10 +208,14 @@ def run_config(n: int, scale="1.0", workdir: str | None = None,
         workdir = tempfile.mkdtemp(prefix=f"kmerax_acc{n}_")
     os.makedirs(workdir, exist_ok=True)
 
-    mesh_d, mesh_b = spec.mesh
+    ov = overrides or {}
+    mesh_d = ov.get("mesh_data", spec.mesh[0])
+    mesh_b = ov.get("mesh_bucket", spec.mesh[1])
     n_dev = len(jax.devices())
-    if mesh_d * mesh_b > n_dev:          # no slice available: run unsharded
-        mesh_d = mesh_b = 1
+    if mesh_d * mesh_b > n_dev:
+        raise ValueError(
+            f"config {n} asks for a {mesh_d}x{mesh_b} mesh but JAX has "
+            f"{n_dev} device(s); pass a smaller mesh through overrides")
 
     genome, paths, sim_reads = _sim_inputs(spec, scale, workdir, seed)
     n_reads = sum(len(r) for r in sim_reads)
@@ -220,7 +234,6 @@ def run_config(n: int, scale="1.0", workdir: str | None = None,
         max_read_len=spec.read_len + 10, bloom_log2_width=width)
     if overrides:
         cfg = cfg.replace(**overrides)
-        mesh_d, mesh_b = cfg.mesh_data, cfg.mesh_bucket
     out_fastq = [os.path.join(workdir, f"corrected_{i+1}.fastq")
                  for i in range(len(paths))]
     out_fasta = os.path.join(workdir, "contigs.fasta") if spec.assemble \

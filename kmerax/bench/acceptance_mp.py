@@ -7,6 +7,11 @@ The parent process simulates the inputs once, spawns the workers, then
 scores accuracy (and assembly quality when the config assembles) exactly
 like the single-process acceptance harness.
 
+CPU emulation only: the workers force the CPU backend
+(`_accept_worker.py`), since every JAX process would reserve most of a
+GPU's memory. Four GPUs of one host run configs 4-5 from one process
+(`run_config` with a mesh override).
+
 Usage:  python -m kmerax.bench.acceptance_mp --config 4 --scale 166.7 \
             --out ACCEPTANCE_full_c4.json
 """

@@ -4,11 +4,11 @@ Weak-scaling methodology: per-host work is held constant (each host streams
 its own read shard) while host count grows 1 -> 2 -> 4; efficiency =
 reads/s(N hosts) / (N * reads/s(1 host)). Hosts are emulated as one
 process each with `devices_per_host` fake CPU devices and real
-jax.distributed + collective traffic over loopback; on a real v5e slice the
-same worker runs unchanged with one process per host (collectives then ride
-ICI/DCN instead of loopback TCP, so only real-slice numbers are meaningful
-for the BASELINE target — this harness validates the measurement path and
-catches scaling regressions in the collective layout).
+jax.distributed + collective traffic over loopback. This is CPU emulation
+only: the workers force the CPU backend (`_scaling_worker.py`), so no
+number from it is a device number — it validates the measurement path and
+catches scaling regressions in the collective layout. Four GPUs of one
+host are driven by one process over a device mesh instead.
 """
 
 from __future__ import annotations
@@ -72,10 +72,10 @@ def run_scaling(host_counts=(1, 2, 4), devices_per_host: int = 2,
         r["correct_efficiency"] = round(
             r["correct_reads_per_s"] / (r["hosts"] * cbase), 4)
     return {"metric": "weak_scaling_efficiency",
-            "backend": "cpu-emulated (loopback DCN)",
+            "backend": "cpu-emulated (loopback network)",
             "per_host_devices": devices_per_host,
             "points": points,
             "efficiency_1_to_max": points[-1]["efficiency"],
             "target": 0.8,
-            "note": "BASELINE target applies to real v5e slices; emulated "
-                    "numbers validate the measurement path only"}
+            "note": "CPU-emulated hosts; the numbers validate the "
+                    "measurement path only"}

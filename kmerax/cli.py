@@ -70,7 +70,7 @@ def _cfg(args) -> KmeraxConfig:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="kmerax",
-        description="TPU-native short-read k-mer counting, correction & assembly")
+        description="Short-read k-mer counting, correction & assembly")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("count", help="k-mer count pass; saves a spectrum dir")

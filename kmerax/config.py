@@ -27,9 +27,7 @@ class KmeraxConfig:
     bloom_log2_width: int = 24
     bloom_hashes: int = 4
     # counter storage: "i32", "p16" (two saturating 16-bit counters per
-    # word — halves table bytes so 2^25 tables stay VMEM/Pallas-resident),
-    # or "auto" (p16 exactly when the i32 table would fall off the Pallas
-    # VMEM budget but the p16 one fits; single-device meshes only)
+    # word — half the table bytes), or "auto" (= i32)
     bloom_counter: str = "auto"
 
     # exact spectrum (DESIGN.md §6): needed for auto-threshold + assembly
@@ -63,8 +61,8 @@ class KmeraxConfig:
     per_host_io: bool = True
     # 2-bit host<->device wire (io/wire.py): pack 4 bases/byte across the
     # host link for N-free batches (per-batch int8 fallback when reads
-    # carry real Ns — identical output bytes either way). The e2e
-    # pipeline is link-bound, so this is ~4x fewer wire bytes.
+    # carry real Ns — identical output bytes either way): 4x fewer
+    # host<->device bytes than int8.
     wire_pack: bool = True
 
     # mesh (DESIGN.md §12)

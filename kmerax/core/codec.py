@@ -1,7 +1,7 @@
-"""TPU-native 2-bit DNA codec over uint32 lane vectors (SURVEY.md §2 #1).
+"""2-bit DNA codec over uint32 lane vectors (SURVEY.md §2 #1).
 
-TPUs have no fast int64, so a k-mer is W = ceil(k/16) little-endian uint32
-words (`words[..., 0]` = least-significant 32 bits); k=31 -> 2 words,
+Device int64 is slow or absent, so a k-mer is W = ceil(k/16) little-endian
+uint32 words (`words[..., 0]` = least-significant 32 bits); k=31 -> 2 words,
 k=63 -> 4. Conventions frozen in DESIGN.md §§1-2; bit-exact vs oracle/codec.py.
 
 All functions are jit-safe pure jnp ops; k is static.

@@ -50,9 +50,9 @@ def bloom_blocks_lanes(words: jnp.ndarray, log2_width: int, d: int,
                        buckets: jnp.ndarray | None, log2_buckets: int):
     """Register-blocked Bloom addressing (DESIGN.md §5).
 
-    Every k-mer maps to ONE 128-lane block inside its bucket's segment (one
-    vector-register row per k-mer — the TPU-native layout); its d probes are
-    lanes within that block.
+    Every k-mer maps to ONE 128-lane block inside its bucket's segment (a
+    512-byte row of int32 counters); its d probes are lanes within that
+    block.
 
     `buckets=None` selects the hash-derived scheme (DESIGN.md §5a): bucket
     and block offset are disjoint bit ranges of h1, so the global block is

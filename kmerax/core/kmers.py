@@ -1,7 +1,7 @@
 """Rolling k-mer extraction from base arrays (SURVEY.md §2 #2).
 
 Vectorized shift-or folds over static base windows — XLA fuses the whole
-extraction into a handful of VPU passes; no gathers, no dynamic shapes.
+extraction into a handful of vector passes; no gathers, no dynamic shapes.
 """
 
 from __future__ import annotations

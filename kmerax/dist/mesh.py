@@ -1,15 +1,15 @@
 """Device mesh & multi-host runtime (SURVEY.md §2 #20; DESIGN.md §12).
 
 The reference is single-node pthreads; the rebuild's communication backend is
-XLA collectives over ICI (intra-slice) / DCN (cross-slice), set up with one
-process per host via jax.distributed. Mesh axes:
+XLA collectives (NCCL over NVLink within a host, the network across
+hosts), set up with one process per host via jax.distributed. Mesh axes:
 
   "data"   — reads are sharded over it (DP); partial spectra merged across it
   "bucket" — the spectrum (Bloom/exact shards) is sharded over it (TP/EP);
              k-mers are all-to-all routed to their minimizer-bucket owner
 
 Device order: jax.make_mesh lays hosts out contiguously, so the "data" axis
-crosses hosts (DCN) only when it must and "bucket" routing stays on ICI.
+crosses hosts only when it must and "bucket" routing stays within a host.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Nodes are rows of the sorted unique-kmer array; edges are discovered with
 eight batched binary searches per node (4 bases × 2 orientations) — the
-TPU-native replacement for hash-table probing. Semantics: DESIGN.md §9.
+Data-parallel replacement for hash-table probing. Semantics: DESIGN.md §9.
 """
 
 from __future__ import annotations

@@ -11,8 +11,9 @@ so each DP row is a handful of vectorized ops + one cumulative max over the
 band — no sequential inner loop. Scores are bit-exact vs oracle.align
 (match +2 / mismatch -3 / gap -4, -inf outside the band).
 
-The band fits one vector register row per read (2*band+1 <= 128), so the
-whole batch advances one DP row per loop step on the VPU.
+This XLA formulation advances the whole batch one DP row per loop step and
+is the reference the GPU kernel (ops.pallas_align) is held to; `band_scores`
+picks the kernel on the GPU and this path everywhere else.
 """
 
 from __future__ import annotations
@@ -82,6 +83,17 @@ def banded_align_scores(query, target, qlen, tlen, band: int):
     dfin = jnp.clip(tlen - qlen + band, 0, W - 1)
     score = rows[bidx, qlen, dfin]
     return jnp.where(jnp.abs(tlen - qlen) <= band, score, NEG_INF)
+
+
+def band_scores(query, target, qlen, tlen, band: int):
+    """Banded scores on this backend: the Pallas kernel (ops.pallas_align)
+    on the GPU, the XLA path above elsewhere. Both are bit-exact vs
+    oracle.align."""
+    if jax.default_backend() == "gpu":
+        from kmerax.ops.pallas_align import banded_align_scores_pallas
+
+        return banded_align_scores_pallas(query, target, qlen, tlen, band)
+    return banded_align_scores(query, target, qlen, tlen, band)
 
 
 def build_contig_index(contig_bases: list, k: int, chunk: int = 1 << 20):
@@ -170,8 +182,7 @@ def _extend_and_score(cat_dev, bases, lengths, is_fwd, off, payload, found,
     oob = (tidx < 0) | (tidx >= M) | ~found[:, None]
     T = jnp.where(oob, 4,
                   cat_dev[jnp.clip(tidx, 0, M - 1)].astype(jnp.int32))
-    from kmerax.ops.pallas_align import banded_align_scores_auto
-    score = banded_align_scores_auto(Q, T, lengths, lengths, band)
+    score = band_scores(Q, T, lengths, lengths, band)
     score = jnp.where(found & (lengths >= k), score, NEG_INF)
     found = found & (lengths >= k)
     return found, jnp.where(found, strand, 0), \
@@ -235,18 +246,13 @@ def seed_positions(read_canon, read_valid, index_uniq, index_pos,
     index_pos: (M,) int32 payload (e.g. target_id << 20 | position).
     Returns (read_offset (B,), payload (B,), found (B,)).
 
-    The binary search dominated the align stage (~90% of wall,
-    experiments/align_profile r4/r5). Two accelerations, both returning
-    identical results:
+    Two accelerations of the plain binary search, both returning identical
+    results:
       * `pref` = (ptable, steps) from spectrum.exact.prefix_table — a
         first-level bucket head start (log2(M) -> a few gather steps);
       * `shash` = (tab, n_slots, attempt) from ops.seed_hash — a cuckoo
-        table making every probe exactly TWO independent row gathers
-        (round-5; ~4x the pref path). When given, index_uniq/index_pos
-        are unused.
-    (A windowed early-exit lax.while_loop was measured and rejected: loop
-    machinery cost more than the saved probes, and one unalignable read
-    forces every round anyway.)
+        table making every probe exactly TWO independent row gathers.
+        When given, index_uniq/index_pos are unused.
     """
     del window
     if shash is not None:

@@ -1,14 +1,13 @@
 """Spectrum-based error correction, vectorized over a read batch.
 
 Bit-exact implementation of the frozen algorithm in DESIGN.md §8 v2 ("C++
-SIMD correction loop → Pallas vectorized spectrum lookup+edit",
-BASELINE.json:5). v2 is the TPU-native formulation: every candidate of a
-round is scored in ONE fused pass against the round-start read (a single
-large spectrum-probe batch — Pallas-friendly), then edits are applied
-simultaneously under a deterministic conflict-suppression rule. This
-replaced v1's sequential per-candidate loop, whose per-slot XLA dispatch
-overhead (measured ~9 ms/slot on v5e regardless of width,
-experiments/correct_profile.py) dominated correction wall time.
+SIMD correction loop → vectorized spectrum lookup+edit", BASELINE.json:5).
+v2 is the data-parallel formulation: every candidate of a round is scored
+in ONE fused pass against the round-start read (a single large
+spectrum-probe batch), then edits are applied simultaneously under a
+deterministic conflict-suppression rule. This replaced v1's sequential
+per-candidate loop, whose per-slot dispatch overhead dominated correction
+wall time.
 
 `query_fn(canon_words, valid) -> int32 counts` abstracts the spectrum
 (counting Bloom, exact sorted, or bucket-sharded).
@@ -38,9 +37,8 @@ def _weak_run_candidates(solid, existing, last_j, k, max_runs):
     run_end = weak & ~next_weak
     run_id = jnp.cumsum(run_start.astype(jnp.int32), axis=1) - 1
 
-    # r-th run's [j0, j1] via per-run argmax reduces — vectorized VPU
-    # passes instead of element scatters (XLA scatters serialize at ~11
-    # cyc/elem on v5e; this was ~70% of the candidate-derivation cost)
+    # r-th run's [j0, j1] via per-run argmax reduces — vectorized passes
+    # instead of element scatters
     j0s, j1s, haves = [], [], []
     for r in range(max_runs):
         ms = run_start & (run_id == r)
@@ -158,7 +156,7 @@ def _eval_entries(bases, lengths, last_j, ent_r, ent_i, k, solid_fn):
 
 def correct_batch(bases, lengths, k: int, t: int, query_fn=None,
                   rounds: int = 2, max_runs: int = 8, max_edits: int = 8,
-                  solid_fn=None, max_cands: int = 4, eval_fn=None,
+                  solid_fn=None, max_cands: int = 4,
                   uniform_width: bool = False):
     """Correct a padded read batch (DESIGN.md §8 v2), bit-exact vs oracle.
 
@@ -172,10 +170,6 @@ def correct_batch(bases, lengths, k: int, t: int, query_fn=None,
         (spectrum.bloom.query_solid) gives bit-identical output with far
         less gather traffic. Exactly one of query_fn / solid_fn required.
       max_cands: per-round candidate cap (DESIGN.md §8 v2).
-      eval_fn: optional fused candidate evaluator
-        (bases, lengths, last_j, ent_r, ent_i) -> (best_b, accept),
-        bit-identical to _eval_entries — the Pallas variant+lookup kernel
-        (ops.pallas_correct.make_fused_eval) on TPU.
       uniform_width: REQUIRED when solid_fn contains collectives (the
         routed sharded-spectrum path): replaces the data-dependent width
         dispatch with one unconditional full-width apply per round, so
@@ -215,12 +209,8 @@ def correct_batch(bases, lengths, k: int, t: int, query_fn=None,
             ent_cc = selc % max_cands            # within-read candidate index
             ent_i = jnp.where(pad, -1, capped.reshape(-1)[selc])
 
-            if eval_fn is not None:
-                best_b, accept = eval_fn(bases, lengths, last_j,
-                                         ent_r, ent_i)
-            else:
-                best_b, accept = _eval_entries(
-                    bases, lengths, last_j, ent_r, ent_i, k, solid_fn)
+            best_b, accept = _eval_entries(
+                bases, lengths, last_j, ent_r, ent_i, k, solid_fn)
 
             # conflict suppression (DESIGN.md §8 v2): a read's candidates
             # occupy consecutive flat slots in cc order, so earlier APPLIED

@@ -1,29 +1,24 @@
-"""Pallas TPU kernel for banded seed-extend alignment (the last of the four
-reference compute stages mandated as a kernel: BASELINE.json:5 "seed-extend
-banded alignment run as Pallas kernels"; SURVEY.md §2 #14).
+"""Banded seed-extend alignment as a Pallas kernel for the GPU (Triton
+route): the DP of ops.align.banded_align_scores with no DP row ever stored.
 
-Formulation is bit-identical to ops.align.banded_align_scores (itself
-bit-exact vs oracle.align): diagonal-coordinate band rows with the linear-gap
-within-row dependency solved by the max-plus cummax identity.
+The XLA path materialises every DP row into a (B, n+1, W) int32 buffer and
+launches a few small kernels per row. Here one program owns BR reads and
+walks all n rows in registers:
 
-Layout: TRANSPOSED relative to the XLA path — the band diagonal d lives on
-the SUBLANE axis (W = 2*band+1 <= SUB sublanes) and reads live on the LANE
-axis (TR = 128 reads per grid step). Wins over the XLA path:
+  * each of the W = 2*band+1 band diagonals is its own (BR,) register
+    vector (reads across threads), so the "up" neighbour S[i-1][j] is just
+    the next diagonal's vector — no lane shifts, which the Triton route
+    cannot express on a value;
+  * the linear-gap within-row dependency S[i][j] = max(M[i][j],
+    S[i][j-1] + GAP) runs as a sequential pass over the diagonals — the
+    same integers as the XLA path's max-plus cummax identity;
+  * target bases arrive as one coalesced (BR,) column load per DP row from
+    the transposed target; the W-column window slides through the loop
+    carry;
+  * the final cell is harvested on the fly at the row where qlen == i, so
+    no post-hoc gather exists.
 
-  * each DP row is a (SUB, 128) register plane — for the default band=15
-    that is 32x128, 4x fewer elements than a lane-major (128, 128) plane,
-    and the whole (B, n+1, W) rows tensor the XLA path pushes through HBM
-    never exists;
-  * the target window for DP row i is ONE dynamic sublane slice
-    tpadT[i:i+SUB] — no per-row gathers, no rolling of full-width planes;
-  * the within-row cummax is a log2(W)-step shift tree of static sublane
-    rolls;
-  * the final cell is harvested on the fly: at row i each read with
-    qlen == i snapshots its diagonal tlen - qlen + band, so no post-hoc
-    gather exists at all.
-
-Scoring constants (MATCH/MISMATCH/GAP/NEG_INF) are imported from ops.align
-so the two paths can never drift.
+Scoring constants come from ops.align so the two paths cannot drift.
 """
 
 from __future__ import annotations
@@ -33,177 +28,122 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from kmerax.ops.align import GAP, MATCH, MISMATCH, NEG_INF
 
-TR = 128                       # reads per grid step (lane axis)
-_SEL_MIN = -(1 << 31) + 1      # below NEG_INF: select identity for max
+BR = 64                        # reads per program
+NUM_WARPS = 2
 
 
-def _sub(w: int) -> int:
-    """Band sublane count: W rounded up to the 8-sublane tile."""
-    return -(-w // 8) * 8
+def _pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
 
 
-def _align_kernel(n: int, band: int, SUB: int,
-                  tpadT_ref, qT_ref, meta_ref, out_ref):
-    """One grid step: score TR banded alignments.
+def _pick(row, dfin):
+    """row[dfin] per read from the list of diagonal vectors."""
+    out = row[0]
+    for d in range(1, len(row)):
+        out = jnp.where(dfin == d, row[d], out)
+    return out
 
-    tpadT_ref: (1, LT, TR) int32 — transposed target rows padded with
-      base-4 sentinels, band+1 on top (so band sublane d of DP row i reads
-      target[j-1] for j = i + d - band), enough below that the SUB-sublane
-      window stays in-range for every row i <= n.
-    qT_ref: (1, LQ, TR) int32 — transposed query rows (4-padded past qlen).
-    meta_ref: (1, 8, TR) int32 — sublane 0 = qlen, sublane 1 = tlen.
-    out_ref: (1, 8, TR) int32 — sublane 0 = final DP cell S[qlen][tlen]
-      (NEG_INF when no in-band path reaches it). The |tlen-qlen| <= band
-      gate is applied by the wrapper, as in ops.align.banded_align_scores.
+
+def _band_kernel(n: int, band: int, tT_ref, qT_ref, qlen_ref, tlen_ref,
+                 out_ref):
+    """Score BR banded alignments.
+
+    tT_ref: (LT, BR) int32, target padded with band+1 base-4 sentinels on
+      top, so diagonal d of DP row i reads target[j-1] = tT[i + d] for
+      j = i + d - band.
+    qT_ref: (LQ, BR) int32, query[i-1] at row i-1.
+    qlen_ref / tlen_ref: (BR,) int32.
+    out_ref: (BR,) int32, the final cell S[qlen][tlen] (NEG_INF when no
+      in-band path reaches it); the |tlen-qlen| <= band gate is applied by
+      the wrapper, as in ops.align.banded_align_scores.
     """
     W = 2 * band + 1
-    d_sub = jax.lax.broadcasted_iota(jnp.int32, (SUB, TR), 0)
-    ninf = jnp.full((SUB, TR), NEG_INF, jnp.int32)
-
-    qlen = meta_ref[0, 0:1, :]                             # (1, TR)
-    tl = meta_ref[0, 1:2, :]
-
-    # row 0: S[0][j] = GAP*j for 0 <= j <= min(band, tlen), else -inf
-    j0 = d_sub - band
-    row0 = jnp.where((j0 >= 0) & (j0 <= tl) & (d_sub < W), GAP * j0, NEG_INF)
-
-    # dfin: diagonal of the final cell in row qlen
+    qlen = qlen_ref[...]
+    tl = tlen_ref[...]
+    ninf = jnp.full_like(qlen, NEG_INF)
     dfin = jnp.clip(tl - qlen + band, 0, W - 1)
 
-    def select(row, cond):
-        """max over sublanes of row where (d == dfin) & cond."""
-        picked = jnp.where((d_sub == dfin) & cond, row, _SEL_MIN)
-        return jnp.max(picked, axis=0, keepdims=True)
-
-    score0 = jnp.where(qlen == 0, select(row0, qlen == 0),
-                       jnp.full((1, TR), NEG_INF, jnp.int32))
-
-    shifts = []
-    s = 1
-    while s < W:
-        shifts.append(s)
-        s *= 2
+    # row 0: S[0][j] = GAP*j for 0 <= j <= min(band, tlen), else -inf
+    row0 = tuple(
+        jnp.where((d - band >= 0) & (d - band <= tl), GAP * (d - band),
+                  NEG_INF) for d in range(W))
+    score0 = jnp.where(qlen == 0, _pick(row0, dfin), ninf)
+    win0 = tuple(tT_ref[d, :] for d in range(1, W))
 
     def body(i, carry):
-        prev, score = carry
-        # band sublane d of row i reads tpadT[i + d] = target[j-1],
-        # j = i + d - band (the band+1 top padding supplies j <= 0)
-        tslc = tpadT_ref[0, pl.ds(i, SUB), :]
-        qi = qT_ref[0, pl.ds(i - 1, 1), :]                 # query[i-1], (1,TR)
-        sub = jnp.where((tslc == qi) & (qi < 4), MATCH, MISMATCH)
+        prev, win, score = carry
+        win = win + (tT_ref[i + W - 1, :],)
+        qi = qT_ref[i - 1, :]
+        qok = qi < 4
+        c0 = i <= band
+        row = []
+        run = None
+        for d in range(W):
+            j = i + d - band
+            sub = jnp.where((win[d] == qi) & qok, MATCH, MISMATCH)
+            up = (prev[d + 1] if d + 1 < W else ninf) + GAP
+            valid = (j >= 1) & (j <= tl)
+            mv = jnp.where(valid, jnp.maximum(prev[d] + sub, up), NEG_INF)
+            is0 = (j == 0) & c0
+            # vector operands: an all-scalar select mis-lowers on Triton
+            m = jnp.maximum(mv, jnp.where(is0, GAP * i, ninf))
+            run = m if d == 0 else jnp.maximum(m, run + GAP)
+            row.append(jnp.where(valid | is0, run, NEG_INF))
+        row = tuple(row)
+        ends = qlen == i
+        score = jax.lax.cond(
+            jnp.max(ends.astype(jnp.int32)) > 0,
+            lambda s: jnp.where(ends, _pick(row, dfin), s),
+            lambda s: s, score)
+        return row, win[1:], score
 
-        diag = prev + sub                                  # S[i-1][j-1]
-        up = jnp.where(d_sub >= W - 1, ninf,
-                       pltpu.roll(prev, shift=SUB - 1, axis=0)) + GAP
-        j = i + d_sub - band
-        valid = (j >= 1) & (j <= tl) & (d_sub < W)
-        Mv = jnp.where(valid, jnp.maximum(diag, up), NEG_INF)
-        col0 = jnp.where((j == 0) & (i <= band), GAP * i, NEG_INF)
-        f = jnp.maximum(Mv, col0) - GAP * d_sub
-        # cummax over the band: log-shift tree (shift down, -inf fill)
-        for sh in shifts:
-            f = jnp.maximum(f, jnp.where(d_sub < sh, ninf,
-                                         pltpu.roll(f, shift=sh, axis=0)))
-        row = f + GAP * d_sub
-        row = jnp.where(valid | ((j == 0) & (i <= band)), row, NEG_INF)
-
-        score = jnp.where(qlen == i, select(row, qlen == i), score)
-        return (row, score)
-
-    _, score = jax.lax.fori_loop(1, n + 1, body, (row0, score0))
-    s8 = jax.lax.broadcasted_iota(jnp.int32, (8, TR), 0)
-    out_ref[0] = jnp.where(s8 == 0, jnp.broadcast_to(score, (8, TR)),
-                           NEG_INF)
+    _, _, score = jax.lax.fori_loop(1, n + 1, body, (row0, win0, score0))
+    out_ref[...] = score
 
 
-@functools.partial(jax.jit, static_argnums=(0, 1, 2, 5))
-def _align_pallas(n: int, band: int, SUB: int, tpadT, qT, interpret, meta):
-    NB = tpadT.shape[0]
-    LT, LQ = tpadT.shape[1], qT.shape[1]
-    f = pl.pallas_call(
-        functools.partial(_align_kernel, n, band, SUB),
-        out_shape=jax.ShapeDtypeStruct((NB, 8, TR), jnp.int32),
-        grid=(NB,),
+@functools.partial(jax.jit, static_argnums=(0, 1, 2))
+def _band_call(n: int, band: int, interpret: bool, tT, qT, qlen, tlen):
+    LT, Bp = tT.shape
+    LQ = qT.shape[0]
+    return pl.pallas_call(
+        functools.partial(_band_kernel, n, band),
+        out_shape=jax.ShapeDtypeStruct((Bp,), jnp.int32),
+        grid=(Bp // BR,),
         in_specs=[
-            pl.BlockSpec((1, LT, TR), lambda s: (s, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, LQ, TR), lambda s: (s, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, TR), lambda s: (s, 0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((LT, BR), lambda p: (0, p)),
+            pl.BlockSpec((LQ, BR), lambda p: (0, p)),
+            pl.BlockSpec((BR,), lambda p: (p,)),
+            pl.BlockSpec((BR,), lambda p: (p,)),
         ],
-        out_specs=pl.BlockSpec((1, 8, TR), lambda s: (s, 0, 0),
-                               memory_space=pltpu.VMEM),
-        cost_estimate=pl.CostEstimate(
-            flops=NB * TR * n * SUB * 30,
-            bytes_accessed=NB * TR * (LT + LQ + 16) * 4, transcendentals=0),
+        out_specs=pl.BlockSpec((BR,), lambda p: (p,)),
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )
-    return f(tpadT, qT, meta)
+        name="band_align",
+    )(tT, qT, qlen, tlen)
 
 
 def banded_align_scores_pallas(query, target, qlen, tlen, band: int, *,
                                interpret: bool = False):
-    """Pallas drop-in for ops.align.banded_align_scores: (B,) int32 scores,
+    """Kernel drop-in for ops.align.banded_align_scores: (B,) int32 scores,
     bit-identical (same recurrence, same NEG_INF contract)."""
     B, n = query.shape
     m = target.shape[1]
     W = 2 * band + 1
-    assert W <= 128, "band must fit the sublane window"
-    SUB = _sub(W)
-
-    bpad = (-B) % TR
-    if bpad:
-        zr = lambda a, v: jnp.concatenate(
-            [a, jnp.full((bpad,) + a.shape[1:], v, a.dtype)])
-        query, target = zr(query, 4), zr(target, 4)
-        qlen, tlen = zr(qlen, 0), zr(tlen, 0)
-    Bp = B + bpad
-    NB = Bp // TR
-
-    # top pad band+1 sentinels; bottom pad so window [i, i+SUB) is in-range
-    # for i <= n AND every in-band index i + W - 1 <= n + 2*band is covered
-    LT = -(-max(band + 1 + m, n + SUB) // 8) * 8
-    rpad = LT - (band + 1 + m)
-    tpad = jnp.concatenate(
-        [jnp.full((Bp, band + 1), 4, jnp.int32), target.astype(jnp.int32),
-         jnp.full((Bp, rpad), 4, jnp.int32)], axis=1)
-    LQ = -(-n // 8) * 8
-    qpad = jnp.concatenate(
-        [query.astype(jnp.int32), jnp.full((Bp, LQ - n), 4, jnp.int32)],
-        axis=1)
-
-    tpadT = tpad.reshape(NB, TR, LT).transpose(0, 2, 1)
-    qT = qpad.reshape(NB, TR, LQ).transpose(0, 2, 1)
-    meta = jnp.zeros((NB, 8, TR), jnp.int32)
-    meta = meta.at[:, 0, :].set(qlen.astype(jnp.int32).reshape(NB, TR))
-    meta = meta.at[:, 1, :].set(tlen.astype(jnp.int32).reshape(NB, TR))
-
-    out = _align_pallas(n, band, SUB, tpadT, qT, interpret, meta)
-    score = out[:, 0, :].reshape(-1)[:B]
-    return jnp.where(jnp.abs(tlen[:B] - qlen[:B]) <= band, score, NEG_INF)
-
-
-def pallas_align_ok(band: int, backend: str | None = None) -> bool:
-    """True when the Pallas aligner applies: TPU backend, band fits the
-    sublane window."""
-    import os
-
-    if os.environ.get("KMERAX_NO_PALLAS"):
-        return False
-    backend = backend or jax.default_backend()
-    return backend == "tpu" and 2 * band + 1 <= 128
-
-
-def banded_align_scores_auto(query, target, qlen, tlen, band: int):
-    """Backend-dispatched banded scores: the Pallas kernel on TPU, the XLA
-    max-plus-scan path elsewhere (both bit-exact vs oracle.align)."""
-    from kmerax.ops.align import banded_align_scores
-
-    if pallas_align_ok(band):
-        return banded_align_scores_pallas(query, target, qlen, tlen, band)
-    return banded_align_scores(query, target, qlen, tlen, band)
+    assert W <= 128, "band must fit one vector register row"
+    Bp = -(-B // BR) * BR
+    # row i reads tT[i .. i+W-1]; i <= n. Power-of-two rows for Triton.
+    LT = _pow2(max(n + W, band + 1 + m))
+    LQ = _pow2(max(n, 1))
+    tpad = jnp.full((Bp, LT), 4, jnp.int32).at[:B, band + 1:band + 1 + m].set(
+        target.astype(jnp.int32))
+    qpad = jnp.full((Bp, LQ), 4, jnp.int32).at[:B, :n].set(
+        query.astype(jnp.int32))
+    zpad = lambda a: jnp.zeros(Bp, jnp.int32).at[:B].set(a.astype(jnp.int32))
+    score = _band_call(n, band, interpret, tpad.T, qpad.T, zpad(qlen),
+                       zpad(tlen))[:B]
+    return jnp.where(jnp.abs(tlen - qlen) <= band, score, NEG_INF)

@@ -1,10 +1,9 @@
 """Exact cuckoo-hash k-mer index for the align seed search (SURVEY.md §2
 #14; round-4 VERDICT Missing #1).
 
-The sorted-array seed search cost ~24 ns/query on v5e even with the
-prefix-table head start (~4 dependent gather rounds per query,
-experiments/align_profile_r5.py: 48 of the 53 ms align-stage wall). A
-cuckoo table makes every lookup EXACTLY TWO independent row gathers:
+The sorted-array seed search needs ~4 dependent gather rounds per query
+even with the prefix-table head start. A cuckoo table makes every lookup
+EXACTLY TWO independent row gathers:
 
   slot1 = h1(kmer) in table half A, slot2 = h2(kmer) in half B;
   every key provably lives in one of its two slots (build-time guarantee),
@@ -151,10 +150,9 @@ def probe_first_hit(tab: jnp.ndarray, n_slots: int, attempt: int,
     at sequencing error rates most reads resolve there (a read is
     unresolved only when errors cover ALL prefix windows). Phase B gathers
     the unresolved reads into a B/4-capacity compacted buffer and probes
-    their remaining positions. Measured on v5e (experiments/
-    seed_phase_lab_r5.py): 11.5 ms vs 22 ms for the full-width probe at
-    B=16384; an in-graph lax.cond fallback was measured and rejected (XLA
-    pays for the untaken fallback branch: +14 ms).
+    their remaining positions. The fallback is a driver-side replay rather
+    than an in-graph lax.cond, so the compiled step never carries the
+    full-width branch.
 
     Returns (first_offset (B,), payload (B,), found (B,), ok bool scalar).
     `ok` is False when more than B/4 reads were unresolved (adversarial

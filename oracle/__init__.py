@@ -1,7 +1,7 @@
 """CPU oracle: exact, slow, unimpeachable implementations of every kmerax stage.
 
 The reference SuperPlus binary is unobtainable (SURVEY.md §0), so this oracle
-is the golden truth the TPU path is verified against bit-for-bit (DESIGN.md).
+is the golden truth the device path is verified against bit-for-bit (DESIGN.md).
 Everything here is pure Python/NumPy; clarity beats speed.
 """
 

@@ -1,7 +1,7 @@
 """Oracle base/k-mer codec. Frozen conventions: DESIGN.md §§1-4.
 
 K-mers are Python ints (arbitrary precision) — correctness over speed. The
-word-layout helpers are the bridge to the TPU path's uint32-lane encoding.
+word-layout helpers are the bridge to the device path's uint32-lane encoding.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""2-process jax.distributed count on CPU — the cross-host (DCN-shaped) path
+"""2-process jax.distributed count on CPU — the cross-host path
 of BASELINE.md config 4: sharded spectrum across 2 'hosts', merged counts
 identical to the single-process result."""
 

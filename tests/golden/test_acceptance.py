@@ -55,3 +55,14 @@ def test_twopass_config(tmp_path):
 def test_specs_documented():
     for n, spec in CONFIGS.items():
         assert spec.note and spec.full_genome_len > spec.genome_len
+
+
+def test_mesh_larger_than_devices_refused(tmp_path):
+    """A mesh the devices cannot hold is an error, never a silent
+    unsharded run."""
+    import jax
+
+    n = len(jax.devices())
+    with pytest.raises(ValueError, match="mesh"):
+        run_config(4, scale=0.05, workdir=str(tmp_path / "big"),
+                   overrides={"mesh_data": 2, "mesh_bucket": n})

@@ -74,7 +74,7 @@ def test_correct_matches_oracle(dataset, spectrum_kind):
         osp.add_reads(bases_list)
         oquery = osp.query
 
-    # TPU path: whole batch at once (jit)
+    # device path: whole batch at once (jit)
     sub = bases_list[:160]
     b, l = _pad_batch(sub, 100)
     fixed, n_edits = jax.jit(
@@ -146,3 +146,29 @@ def test_correct_batch_bitmap_path_identical(dataset):
         lambda x, l: correct_batch(x, l, k, t, solid_fn=sf))(b, lengths)
     np.testing.assert_array_equal(np.asarray(got_b), np.asarray(ref_b))
     np.testing.assert_array_equal(np.asarray(got_e), np.asarray(ref_e))
+
+
+@pytest.mark.parametrize("k", [25, 31, 63])
+def test_correct_step_bitmap_matches_oracle(dataset, k):
+    """The production correct step (pipeline.run.make_correct_step: packed
+    solidity bitmap, int8 wire) is bit-identical to oracle.correct_read."""
+    from kmerax.pipeline.run import make_correct_step
+
+    t = 3
+    params = BloomParams(k=k, log2_width=18, num_hashes=4)
+    all_b, _ = _pad_batch(dataset, 100)
+    words, valid = extract_kmers(all_b, k)
+    canon, _ = canonical_words(words, k)
+    table = insert(params, make_table(params), canon, valid)
+    step, spec = make_correct_step(params, table, t, rounds=2, max_runs=8,
+                                   max_edits=8)
+    sub = dataset[:96]
+    b, lens = _pad_batch(sub, 100)
+    fixed, n_edits = step(spec, b.astype(jnp.int8), lens)
+    fixed = np.asarray(fixed)
+    obl = oracle.CountingBloomOracle(k, log2_width=18, num_hashes=4)
+    obl.add_reads(dataset)
+    for i, r in enumerate(sub):
+        want = oracle.correct_read(r, k, t, obl.query)
+        assert np.array_equal(fixed[i, :len(r)], want), i
+    assert (np.asarray(n_edits) > 0).sum() > 10

@@ -20,6 +20,11 @@ def revcomp_bases(b: np.ndarray) -> np.ndarray:
     return _COMP[b[::-1]]
 
 
+def _qual_str(q: np.ndarray) -> str:
+    """Phred+33 quality string of integer scores."""
+    return (q + 33).astype(np.uint8).tobytes().decode("ascii")
+
+
 def random_genome(rng: np.random.Generator, length: int) -> np.ndarray:
     return rng.integers(0, 4, size=length, dtype=np.int64).astype(np.uint8)
 
@@ -67,7 +72,7 @@ def simulate_reads(genome: np.ndarray, n_reads: int, read_len: int,
         if n_rate > 0:
             ns = rng.random(read_len) < n_rate
             b = np.where(ns, np.uint8(4), b).astype(np.uint8)
-        qual = "".join(chr(33 + int(q)) for q in rng.integers(30, 40, read_len))
+        qual = _qual_str(rng.integers(30, 40, read_len))
         reads.append(SimRead(f"{name_prefix}L1C001R{i:09d}", b, qual,
                              true, pos, strand))
     return reads
@@ -113,8 +118,7 @@ def simulate_pairs(genome: np.ndarray, n_pairs: int, read_len: int,
             if errs.any():
                 shifts = rng.integers(1, 4, size=read_len).astype(np.uint8)
                 b = np.where(errs, (b + shifts) % 4, b).astype(np.uint8)
-            qual = "".join(chr(33 + int(q))
-                           for q in rng.integers(30, 40, read_len))
+            qual = _qual_str(rng.integers(30, 40, read_len))
             mates.append(SimRead(
                 f"{name_prefix}L1C001R{i:09d}/{mate}", b, qual, true,
                 pos, 0 if mate == 1 else 1))

@@ -1,5 +1,5 @@
 """p16 packed-halfword counters (two saturating 16-bit counters per int32
-word): XLA and Pallas-interpret paths vs the i32 reference. Solidity must be
+word) vs the i32 reference. Solidity must be
 identical for any threshold <= SAT16; raw counts identical below
 saturation; saturation is batch-order-independent."""
 
@@ -73,46 +73,36 @@ def test_saturation_order_independent():
     assert a.max() == SAT16
 
 
-def test_pallas_interpret_matches_xla_p16():
-    from kmerax.spectrum.pallas_bloom import insert_pallas, \
-        query_solid_pallas
-
+@pytest.mark.parametrize("scheme", ["hash", "minimizer"])
+def test_query_solid_matches_thresholded_query_p16(scheme):
+    """p16 solidity bitmap query == query(p16) >= t, invalid lanes False."""
+    p16 = dataclasses.replace(P16, bucket_scheme=scheme)
     canon, valid = _kmers(3)
-    t_x = insert(P16, make_table(P16), canon, valid)
-    t_p = insert_pallas(P16, make_table(P16), canon, valid, interpret=True)
-    assert np.array_equal(np.asarray(t_x), np.asarray(t_p))
-    s_ref = np.asarray(query(P16, t_x, canon, valid) >= 2) & np.asarray(
-        valid)
-    s_p = np.asarray(query_solid_pallas(P16, t_p, 2, canon, valid,
-                                        interpret=True))
-    assert np.array_equal(s_ref, s_p)
+    valid = valid & (jnp.arange(valid.shape[1])[None, :] % 11 != 4)
+    table = insert(p16, make_table(p16), canon, valid)
+    for t in (1, 2, 3):
+        want = np.asarray(query(p16, table, canon, valid) >= t) & np.asarray(
+            valid)
+        got = np.asarray(query_solid(p16, solidity_bitmap(p16, table, t),
+                                     canon, valid))
+        assert np.array_equal(want, got)
+    assert want.any()
 
 
 def test_auto_counter_resolution():
+    """"auto" resolves to i32 at every width and mesh; explicit wins."""
     from kmerax.config import KmeraxConfig
     from kmerax.pipeline.run import _bloom_params
-    from kmerax.spectrum.pallas_bloom import VMEM_BUDGET
 
-    # pick widths around the budget: 2^24 i32 = 64MB fits -> i32;
-    # 2^25 i32 = 128MB > budget but p16 64MB fits -> p16 — on the TPU
-    # backend ONLY (no Pallas residency to rescue elsewhere; ADVICE r4
-    # low #2 — this CPU-backend test asserts i32, then fakes a TPU)
-    import unittest.mock as mock
-
-    assert VMEM_BUDGET == 100 * 1024 * 1024
-    assert _bloom_params(KmeraxConfig(k=31, bloom_log2_width=24),
-                         31).counter == "i32"
-    assert _bloom_params(KmeraxConfig(k=31, bloom_log2_width=25),
-                         31).counter == "i32"      # CPU backend: no p16
-    import jax
-    with mock.patch.object(jax, "default_backend", return_value="tpu"):
-        assert _bloom_params(KmeraxConfig(k=31, bloom_log2_width=25),
-                             31).counter == "p16"
-    # mesh configs stay i32 even at wide tables
+    for lw in (20, 24, 25, 28):
+        assert _bloom_params(KmeraxConfig(k=31, bloom_log2_width=lw),
+                             31).counter == "i32"
     assert _bloom_params(
         KmeraxConfig(k=31, bloom_log2_width=25, mesh_data=2, mesh_bucket=4),
         31).counter == "i32"
-    # explicit override wins
+    assert _bloom_params(
+        KmeraxConfig(k=31, bloom_log2_width=25, bloom_counter="p16"),
+        31).counter == "p16"
     assert _bloom_params(
         KmeraxConfig(k=31, bloom_log2_width=25, bloom_counter="i32"),
         31).counter == "i32"

@@ -1,6 +1,7 @@
-"""Pallas banded aligner vs the XLA max-plus path (itself golden-pinned vs
-oracle.align in tests/golden/test_align.py). Interpret mode on CPU; the
-compiled-real-chip parity lives in tests/tpu/test_smoke.py."""
+"""Band-align kernel (Pallas, Triton route) vs the XLA max-plus path
+(itself golden-pinned vs oracle.align in tests/golden/test_align.py), in
+interpret mode on the CPU; the compiled parity on the GPU lives in
+tests/gpu/test_smoke.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -59,3 +60,22 @@ def test_related_reads_score_positive():
                                                 interpret=True))
     assert np.array_equal(ref, got)
     assert np.all(got == 2 * n)     # perfect match: MATCH * n
+
+
+@pytest.mark.parametrize("backend,kernel", [("gpu", True), ("cpu", False)])
+def test_band_scores_picks_kernel_on_gpu(backend, kernel, monkeypatch):
+    """ops.align.band_scores: the kernel on the GPU, XLA elsewhere."""
+    import jax
+
+    import kmerax.ops.align as align
+    import kmerax.ops.pallas_align as pa
+
+    calls = []
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    monkeypatch.setattr(pa, "banded_align_scores_pallas",
+                        lambda *a: calls.append("kernel") or "k")
+    monkeypatch.setattr(align, "banded_align_scores",
+                        lambda *a: calls.append("xla") or "x")
+    out = align.band_scores(None, None, None, None, 15)
+    assert calls == (["kernel"] if kernel else ["xla"])
+    assert out == ("k" if kernel else "x")
